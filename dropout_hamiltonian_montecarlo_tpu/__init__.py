@@ -1,11 +1,11 @@
-"""dropout_hamiltonian_montecarlo_tpu — TPU-native Bayesian MCMC framework.
+"""dropout_hamiltonian_montecarlo_tpu — Bayesian MCMC framework on JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 sherna90/dropout_hamiltonian_montecarlo (reference at /root/reference): a
 Bayesian model zoo with hand-checkable log-densities, HMC/NUTS/Metropolis and
 stochastic-gradient MCMC sampler kernels expressed as lax.scan programs,
-vmapped multi-chain execution, mesh-sharded chains/data via shard_map, and
-Pallas TPU kernels for the fused leapfrog inner loop.
+vmapped and chain-batched multi-chain execution, and mesh-sharded
+chains/data via shard_map.
 """
 
 __version__ = "0.1.0"

@@ -12,7 +12,7 @@ This is the vectorized-MCMC-on-accelerators recipe (PAPERS.md): the criterion
 
 needs cross-chain expectations every step — free here, because the flagship
 execution model already advances all chains through one fused batched kernel
-(hmc.build_batched_kernel / the Pallas GLM kernel), so E[.] is a mean over the
+(hmc.build_batched_kernel), so E[.] is a mean over the
 chain axis of arrays that are already resident in HBM.  Each adaptation step:
 
   1. draw a quasi-random jitter h_m (Halton, base 2) shared by all chains,
@@ -26,8 +26,7 @@ chain axis of arrays that are already resident in HBM.  Each adaptation step:
 
 All control flow is a single lax.scan over adaptation steps with a
 lax.fori_loop trajectory inside — one XLA program, static shapes, no host
-round-trips.  Works on any chain-batched value_and_grad (XLA vmap or the
-fused Pallas path) and composes with the whitened-space metric machinery
+round-trips.  Works on any chain-batched value_and_grad and composes with the whitened-space metric machinery
 (run in whitened coordinates -> inv_mass = 1).
 """
 
@@ -113,8 +112,8 @@ def run_chees_warmup(
     """Joint (step size, trajectory length) adaptation over a chain ensemble.
 
     ``value_and_grad_fn``: chain-batched positions -> ((C,) values, grads) —
-    the same callable hmc.build_batched_kernel takes, so the Pallas fused
-    path drops in unchanged.  ``initial_state`` is a batched HMCState
+    the same callable hmc.build_batched_kernel takes, so any batched
+    value+grad drops in unchanged.  ``initial_state`` is a batched HMCState
     (hmc.batched_init).  Returns shared scalars: ChEES adapts ONE (eps, T)
     pair for the whole ensemble — the regime the criterion is derived for.
     """

@@ -135,15 +135,15 @@ def build_batched_kernel(
     Instead of vmapping the per-chain kernel (which makes XLA differentiate
     the log density with separate forward/backward dataset passes), the
     integrator calls ``value_and_grad_fn`` on the full chain-stacked position
-    pytree — so a fused multi-chain value+grad (the Pallas GLM kernel,
-    ops/pallas_glm.py) serves every chain with ONE pass over the data.
+    pytree — so a batched multi-chain value+grad
+    (ops/kron_metric.make_whitened_fused_vag) serves every chain with ONE
+    pass over the data.
 
     ``grad_fn`` (optional, positions -> batched grads OR (noisy_value,
     grads)): lazy-value trajectories.  The MH accept only needs the log
     density at the trajectory ENDPOINTS, so the first L-1 leapfrog steps use
     the cheaper grad-only function and ``value_and_grad_fn`` runs once, at
-    the proposal — with the Pallas GLM kernel that's 1 forward pass per
-    inner step instead of 2-3 (fwd_full=False).  The gradient may be noisier
+    the proposal.  The gradient may be noisier
     than value_and_grad_fn's: gradient error only perturbs the proposal
     (detailed balance is preserved by the accurate endpoint energies).
 

@@ -6,7 +6,7 @@ iterative formulation (Phan & Pradhan / numpyro-style) rather than Hoffman &
 Gelman's recursion: a fixed-depth while_loop with O(max_depth) checkpoint
 buffers for the sub-tree U-turn checks, so the whole sampler is one
 compiler-friendly XLA program with static shapes — vmap/shard_map-safe for
-multi-chain TPU execution, unlike recursive tree building.
+multi-chain accelerator execution, unlike recursive tree building.
 
 Internals run on flattened parameter vectors (ravel_pytree once per kernel
 build); only the log-density sees pytrees.  The kernel signature matches

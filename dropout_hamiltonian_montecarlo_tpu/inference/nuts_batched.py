@@ -2,14 +2,14 @@
 
 The per-chain NUTS kernel (inference/nuts.py) under vmap makes XLA
 differentiate the log density PER CHAIN — separate forward/backward dataset
-passes per chain per leaf, and none of the fused multi-chain machinery
-(ops/pallas_glm.py) applies.  At MNIST scale that is ~45x slower per draw
-than the fused chain-batched HMC path on the same posterior.
+passes per chain per leaf instead of one batched product for all chains,
+which at MNIST scale is far slower per draw than the chain-batched HMC
+path on the same posterior.
 
 This module is the fused-path NUTS: the iterative (numpyro-style) tree
 builder is restructured so that EVERY chain takes each leapfrog step
 together through ONE chain-batched ``value_and_grad`` call — the same
-callable hmc.build_batched_kernel takes, so the Pallas GLM kernel serves
+callable hmc.build_batched_kernel takes, so one batched value+grad serves
 every chain's leaf with a single pass over the dataset.  Chains whose
 trees have terminated (U-turn or divergence) mask out of the state updates
 (padded iteration) but ride along in the batched compute; because the
@@ -77,9 +77,9 @@ def build_batched_kernel(
 
     ``value_and_grad_fn``: chain-batched positions pytree (leaves (C, ...))
     -> ((C,) log densities, batched grads).  Every leaf of every chain's
-    tree costs ONE call on the full batch — plug in the fused Pallas GLM
-    value+grad (models/softmax.make_fused_value_and_grad) composed with the
-    whitening maps, exactly as the headline bench does for HMC (bench.py).
+    tree costs ONE call on the full batch — plug in the whitened batched
+    value+grad (ops/kron_metric.make_whitened_fused_vag), exactly as the
+    headline bench does for HMC (bench.py).
 
     ``key``: a single key (split into per-chain keys internally — what
     warmup.run_warmup passes) or a (C,) per-chain key array (what the

@@ -10,7 +10,7 @@ matching the reference's observable capabilities (minibatch epochs, inverse-time
 step-size decay, one retained draw per epoch, per-epoch loss trace).
 
 Data pipeline: the dataset lives in device memory (HBM); each step gathers a
-random minibatch by index inside the scan — the TPU replacement for the
+random minibatch by index inside the scan — the replacement for the
 reference's producer-Process + Queue streaming (cpu/sgld_multicore.py:73-97).
 Sharding the batch across a data mesh axis happens in parallel/ (psum of
 gradients), not here.
@@ -297,7 +297,7 @@ def run_sgmcmc_chains(
 ):
     """vmap run_sgmcmc over a chain axis (per-chain keys; shared dataset).
 
-    The TPU replacement for the reference's multicore SG-MCMC workers
+    The replacement for the reference's multicore SG-MCMC workers
     (cpu/sgld_multicore.py:85-104): chains are a batch axis, minibatch draws
     are per-chain random gathers, no queues.  Returns (final_states,
     positions, infos) with leading (chains, draws) axes on positions.

@@ -7,7 +7,7 @@ with cross-host resampling"); no reference counterpart.  Design:
   across devices with a NamedSharding and every step below is a global-array
   program under jit — the weight reduction (logsumexp), the adaptive
   temperature solve, and the resampling gather lower to XLA collectives
-  (all_gather/all_to_all over ICI) automatically; no hand-written transport.
+  (all_gather/all_to_all between devices) automatically; no hand-written transport.
 - temperature ladder lambda: 0 -> 1, adapted so the effective sample size of
   the incremental weights stays at target_ess * N (bisection inside jit);
 - mutation: any (key, state, step_size, inv_mass) kernel (HMC/NUTS/MH) vmapped

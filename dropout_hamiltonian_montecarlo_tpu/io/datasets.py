@@ -102,9 +102,8 @@ def mnist(path: Optional[str] = None, split: str = "train"):
             y = np.asarray(f[f"y_{split}"]).astype(np.int32)
         if X.max() > 1.5:
             # /256 (not /255): 8-bit pixels k/256 are EXACTLY
-            # bf16-representable, so the Pallas kernel's bf16 X carries no
-            # rounding error and skips the Xl correction pass
-            # (ops/pallas_glm.py:split_bf16_input)
+            # bf16-representable, so a bf16 copy of X carries no rounding
+            # error
             X = X / 256.0
         if y.ndim == 2:  # one-hot stored
             y = y.argmax(-1).astype(np.int32)

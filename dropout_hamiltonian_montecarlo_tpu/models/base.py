@@ -1,4 +1,4 @@
-"""Model protocol for the TPU-native Bayesian inference engine.
+"""Model protocol for the Bayesian inference engine.
 
 Capability parity with the reference model layer
 (/root/reference/hamiltonian/models/model.py:1-7 and the duck-typed interface of

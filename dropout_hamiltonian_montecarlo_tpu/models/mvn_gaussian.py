@@ -4,7 +4,7 @@ Capability parity with /root/reference/hamiltonian/models/cpu/mvn_gaussian.py:14
 (the HMC-vs-Metropolis demo target behind hmc_mvn.png / mh_mvn.png).  The
 reference recomputes inv(cov) and logdet per call; here the Cholesky factor is
 precomputed once at construction so the per-step cost is one triangular solve —
-an MXU-friendly batched op under vmap over chains.
+a batched matmul-shaped op under vmap over chains.
 """
 
 from __future__ import annotations

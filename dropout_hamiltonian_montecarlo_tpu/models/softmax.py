@@ -3,9 +3,9 @@
 Capability parity with /root/reference/hamiltonian/models/cpu/softmax.py
 (logsumexp cross-entropy :17-20, stable softmax :32-36, analytic grad :45-61,
 predict :82-89, MC-dropout predict_stochastic :91-100).  The (X @ W) GEMM is
-the hot op: under vmap over chains XLA batches it into one large MXU matmul
-(X shared, W stacked), which is the TPU replacement for the reference's
-per-chain multiprocessing.
+the hot op: under vmap over chains XLA batches it into one large matmul
+(X shared, W stacked), which replaces the reference's per-chain
+multiprocessing.
 
 Params: {'weights': (D,K), 'bias': (K,)} ; batch: (X[B,D], y[B,K] one-hot).
 """
@@ -59,43 +59,6 @@ class Softmax(Model):
         the reference passes p as the Binomial keep probability)."""
         mask = jax.random.bernoulli(key, 1.0 - p_drop, X.shape).astype(X.dtype)
         return self.predict(params, X * mask, prob=prob)
-
-    def make_fused_value_and_grad(self, batch, tile_rows: int = 512,
-                                  interpret: bool = False,
-                                  bwd_3pass: bool = False,
-                                  fwd_full: bool = True,
-                                  x_split=None,
-                                  include_prior: bool = True):
-        """Chain-batched fused log-posterior value+grad via the Pallas TPU
-        kernel (ops/pallas_glm.py): params leaves carry a leading chain axis
-        ({'weights': (C,D,K), 'bias': (C,K)}), returns ((C,), batched grads)
-        with ONE pass over X per call — feeds
-        inference.hmc.build_batched_kernel.  The dataset's bf16 (hi, lo)
-        split is precomputed here, once, not per leapfrog step (pass the
-        same ``x_split`` to several makers to share the device copy).
-
-        ``fwd_full=False`` builds the cheap grad-only variant (single-pass
-        forward logits): use as the ``grad_fn`` of
-        hmc.build_batched_kernel's lazy-value trajectory — its value output
-        is too noisy for MH accepts.  ``include_prior=False`` returns the
-        likelihood-only value/grads for data-parallel composition (psum the
-        outputs over the data mesh axis, add the prior once outside)."""
-        from ..ops.pallas_glm import softmax_value_and_grad, split_bf16_input
-
-        X, y = batch
-        if x_split is None:
-            x_split = split_bf16_input(X)
-
-        def vag(params):
-            value, gw, gb = softmax_value_and_grad(
-                None, y, params["weights"], params["bias"], float(self.alpha),
-                tile_rows=tile_rows, interpret=interpret, bwd_3pass=bwd_3pass,
-                x_split=x_split, fwd_full=fwd_full,
-                include_prior=include_prior,
-            )
-            return value, {"weights": gw, "bias": gb}
-
-        return vag
 
     def analytic_grad(self, params, batch):
         """Closed-form grad of the log posterior (golden test vs jax.grad);

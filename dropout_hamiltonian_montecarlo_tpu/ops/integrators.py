@@ -65,8 +65,8 @@ def velocity_verlet_batched(
 ) -> Callable:
     """Chain-batched leapfrog: leaves carry a leading chain axis C,
     ``value_and_grad_fn`` maps the batched position to ((C,) values, batched
-    grads) in ONE call (e.g. the fused Pallas GLM kernel,
-    ops/pallas_glm.py), and ``step_size`` is a per-chain (C,) vector.
+    grads) in ONE call (e.g. ops/kron_metric.make_whitened_fused_vag), and
+    ``step_size`` is a per-chain (C,) vector.
 
     This is what vmap-of-grad cannot express: one dataset pass serving every
     chain's gradient, instead of XLA's separate forward+backward passes.

@@ -66,7 +66,7 @@ def batched_diagonal_metric(inv_mass: Params) -> Metric:
 
     This is the metric for the chain-batched HMC kernel
     (inference.hmc.build_batched_kernel), where all chains advance inside ONE
-    program so a fused multi-chain value_and_grad (ops/pallas_glm.py) can
+    program so a batched multi-chain value_and_grad can
     serve them in a single dataset pass.
     """
     from .tree import tree_batched_dot

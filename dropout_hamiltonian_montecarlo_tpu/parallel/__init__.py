@@ -1,9 +1,9 @@
 """Parallelism layer: device meshes, sharded chains, data-parallel gradients.
 
-The TPU replacement for the reference's L3 (multiprocessing.Pool chains +
+The replacement for the reference's L3 (multiprocessing.Pool chains +
 producer/consumer Queue minibatch streaming, SURVEY.md §2 parallelism table):
 chains shard over a 'chains' mesh axis, minibatch gradients psum over a 'data'
-axis, posterior collection is an all_gather — all XLA collectives over ICI/DCN,
+axis, posterior collection is an all_gather — all XLA collectives between devices,
 no pickling, no queues.
 """
 

@@ -78,10 +78,10 @@ def sample_batched_sharded(
     post_step: Callable = None,
 ):
     """Shard the FLAGSHIP chain-batched path (hmc.build_batched_kernel — the
-    fused one-dataset-pass-per-leapfrog-step kernel the headline bench runs,
-    Pallas-fused on TPU) over a device mesh: each device advances its chain
-    BLOCK through the same fused kernel; the dataset is a replicated closure
-    constant, so the only cross-device traffic is the output layout.
+    one-batched-value+grad-per-leapfrog-step kernel the headline bench runs)
+    over a device mesh: each device advances its chain BLOCK through the
+    same kernel; the dataset is a replicated closure constant, so the only
+    cross-device traffic is the output layout.
 
     PRNG: per-(draw, chain) keys are built OUTSIDE the shard_map and sharded
     along the chain axis, and the batched kernel consumes per-chain keys — so

@@ -1,10 +1,10 @@
 """Data-parallel gradients: shard the batch, psum the gradient.
 
-The TPU replacement for the reference's producer/consumer Queue minibatch
+The replacement for the reference's producer/consumer Queue minibatch
 pipeline (/root/reference/hamiltonian/inference/cpu/sgld_multicore.py:73-97):
 the dataset is laid out across the 'data' mesh axis once (one device_put), and
-every minibatch gradient is a local gather + matmul followed by a psum over
-ICI — no host round-trips, no pickling.
+every minibatch gradient is a local gather + matmul followed by a psum across
+devices — no host round-trips, no pickling.
 """
 
 from __future__ import annotations
@@ -74,8 +74,8 @@ def make_sharded_value_and_grad(model, data_size: int, axis: str = "data",
 
     This is psum-of-grad, correct by construction under any check_vma
     setting — unlike grad-of-psum, whose transpose under check_vma=False
-    double-counts (the round-1 data-parallel gradient bug).  TPU replacement
-    for the reference's per-worker minibatch gradient
+    double-counts (the round-1 data-parallel gradient bug).  Replaces
+    the reference's per-worker minibatch gradient
     (/root/reference/hamiltonian/inference/cpu/sgld_multicore.py:73-97).
 
     The returned callable accepts (params, local_batch[, key]) — the

@@ -3,8 +3,9 @@
 Replaces the reference's process-pool topology (ncores workers,
 /root/reference/hamiltonian/inference/cpu/hmc_multicore.py:22-38) with a
 jax.sharding.Mesh over ('chains', 'data') axes.  Multi-host: call
-jax.distributed.initialize() before building the mesh; XLA lays collectives
-over ICI within a slice and DCN across hosts.
+jax.distributed.initialize() before building the mesh.  The mesh is flat:
+the cards of one host reach each other all to all, so the layout follows
+the algorithm alone.
 """
 
 from __future__ import annotations
@@ -46,15 +47,16 @@ def init_distributed(
 ) -> int:
     """Join a multi-host process group (jax.distributed.initialize).
 
-    The TPU replacement for the reference's fork-based worker pool
+    The replacement for the reference's fork-based worker pool
     (/root/reference/hamiltonian/inference/cpu/sgld_multicore.py:91-97):
-    afterwards jax.devices() spans every host's chips and meshes built by
-    make_mesh/make_multihost_mesh lay collectives over ICI within a slice
-    and DCN across hosts.  On single-host (or when already initialized)
-    this is a no-op.  Returns this process's index.
+    afterwards jax.devices() spans every host's devices and meshes built
+    by make_mesh/make_multihost_mesh lay collectives across the group.  On
+    single-host (or when already initialized) this is a no-op.  Returns
+    this process's index.
 
-    On Cloud TPU all three arguments are auto-detected from the metadata
-    server; pass them explicitly elsewhere (e.g. GPU clusters or tests).
+    Pass all three arguments explicitly where no cluster environment
+    describes the group (a single GPU host, tests): jax.distributed
+    auto-detects them only under a cluster manager such as SLURM.
 
     NOTE: must run before anything touches the backend (jax.devices(),
     jax.process_count(), any computation) — initialize() raises after
@@ -69,7 +71,7 @@ def init_distributed(
     if num_processes is not None and num_processes <= 1:
         return 0
     if coordinator_address is None and num_processes is None:
-        # auto-detection environment (Cloud TPU / SLURM); fall back to
+        # auto-detection environment (e.g. SLURM); fall back to
         # single-process when there is nothing to detect
         try:
             jax.distributed.initialize()
@@ -93,13 +95,13 @@ def make_multihost_mesh(
 ) -> Mesh:
     """Mesh over EVERY process's devices, hosts laid along the 'chains' axis.
 
-    Device order: jax.devices() already interleaves all processes' chips;
-    we sort by (process_index, device id) so each host's chips are
-    contiguous along the chains axis — chain parallelism then needs no
+    Device order: jax.devices() already interleaves all processes'
+    devices; we sort by (process_index, device id) so each host's devices
+    are contiguous along the chains axis — chain parallelism then needs no
     cross-host communication at all (the reference's multicore chains are
     embarrassingly parallel, cpu/hmc_multicore.py:22-38), while the 'data'
-    axis psum stays within a host's slice (ICI) whenever
-    num_data_shards <= chips per host.
+    axis psum stays within a host whenever num_data_shards <= devices per
+    host.
     """
     devices = list(devices if devices is not None else jax.devices())
     devices.sort(key=lambda d: (d.process_index, d.id))

@@ -3,7 +3,7 @@
 The reference's ONE true distributed sampler streams minibatches from a
 producer Process through a Queue to pool workers
 (/root/reference/hamiltonian/inference/cpu/sgld_multicore.py:73-97,
-cpu/sghmc_multicore.py:71-99).  The TPU-native composition (BASELINE config
+cpu/sghmc_multicore.py:71-99).  The JAX composition (BASELINE config
 4: "SGHMC/SGLD minibatch gradients with psum across data shards"):
 
 - the dataset's example axis is laid across the 'data' mesh axis once

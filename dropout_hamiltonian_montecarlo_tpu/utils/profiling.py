@@ -18,7 +18,7 @@ import jax
 
 @contextlib.contextmanager
 def device_trace(logdir: str):
-    """Capture a TPU/host profiler trace viewable in TensorBoard/Perfetto."""
+    """Capture a device/host profiler trace viewable in TensorBoard/Perfetto."""
     jax.profiler.start_trace(logdir)
     try:
         yield

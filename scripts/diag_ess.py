@@ -1,7 +1,7 @@
 """Diagnose the bench's min-ESS tail (VERDICT r2 item 4).
 
 Reproduces the headline bench pipeline (Kron Gauss-Newton metric, whitened
-HMC, Pallas fused kernel) at reduced draw count, then computes ESS of the
+chain-batched HMC) at reduced draw count, then computes ESS of the
 WHITENED (eigenbasis) coordinates directly and reports the slowest ones with
 their curvature decomposition:
 
@@ -26,10 +26,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_default_matmul_precision", "high")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
+from dropout_hamiltonian_montecarlo_tpu.utils.runtime import configure  # noqa: E402
+
+configure()
 
 NUM_CHAINS = 128
 NUM_WARMUP = 300
@@ -53,10 +52,10 @@ def main():
     )
     from dropout_hamiltonian_montecarlo_tpu.ops.kron_metric import (
         gram_eigh_augmented,
+        make_whitened_fused_vag,
         natural_gradient_map,
         softmax_gauss_newton_metric,
     )
-    from dropout_hamiltonian_montecarlo_tpu.ops.tree import tree_add
 
     X, yi = datasets.mnist()
     y = (yi[:, None] == jnp.arange(10)).astype(jnp.float32)
@@ -87,38 +86,8 @@ def main():
     metric = softmax_gauss_newton_metric(X, 10, alpha=ALPHA, gram=gram,
                                          probs=probs, augmented=True)
 
-    use_pallas = jax.default_backend() == "tpu"
-    e_example = {"weights": jnp.zeros((784, 10), jnp.float32),
-                 "bias": jnp.zeros((10,), jnp.float32)}
-    if use_pallas:
-        from dropout_hamiltonian_montecarlo_tpu.ops.pallas_glm import (
-            split_bf16_input,
-        )
-
-        x_split = split_bf16_input(X)
-        fused_q = model.make_fused_value_and_grad((X, y), x_split=x_split)
-        fused_g = model.make_fused_value_and_grad((X, y), x_split=x_split,
-                                                  fwd_full=False)
-        unwhiten_t = jax.linear_transpose(metric.unwhiten, e_example)
-
-        def _whitened(fused):
-            def f(E):
-                dQ = jax.vmap(metric.unwhiten)(E)
-                Q = jax.tree_util.tree_map(lambda m_, d: m_[None] + d,
-                                           qmap, dQ)
-                val, G = fused(Q)
-                gE = jax.vmap(lambda g: unwhiten_t(g)[0])(G)
-                return val, gE
-            return f
-
-        batched_vag = _whitened(fused_q)
-        batched_grad = _whitened(fused_g)
-    else:
-        def logdensity_e(e):
-            return logdensity(tree_add(qmap, metric.unwhiten(e)))
-
-        batched_vag = jax.vmap(jax.value_and_grad(logdensity_e))
-        batched_grad = None
+    batched_vag, batched_grad = make_whitened_fused_vag(model, metric, qmap,
+                                                        (X, y))
 
     kernel_b = hmc.build_batched_kernel(batched_vag, NUM_INTEGRATION_STEPS,
                                         grad_fn=batched_grad)

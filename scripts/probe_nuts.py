@@ -14,10 +14,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_default_matmul_precision", "high")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
+from dropout_hamiltonian_montecarlo_tpu.utils.runtime import configure  # noqa: E402
+
+configure()
 
 
 def main():
@@ -40,7 +39,7 @@ def main():
     model = Softmax(dim=d, n_classes=k, alpha=1.0)
     metric, _aux, qmap, hit = cached_gn_setup(
         X, y, model, alpha=1.0, newton_steps=60,
-        cache_dir="/root/repo/.data_cache",
+        cache_dir=os.path.join(os.path.dirname(__file__), "..", ".data_cache"),
         provenance=datasets.mnist_provenance())
     print(f"setup cache hit: {hit}", file=sys.stderr)
 

@@ -15,10 +15,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_default_matmul_precision", "high")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
+from dropout_hamiltonian_montecarlo_tpu.utils.runtime import configure  # noqa: E402
+
+configure()
 
 
 def main():

@@ -233,8 +233,8 @@ def test_augmented_metric_whitens_positive_feature_softmax():
     p = {"weights": jax.random.normal(jax.random.key(2), (d, k)),
          "bias": jax.random.normal(jax.random.key(3), (k,))}
     rt = m_c.unwhiten(m_c.whiten(p))
-    # rtol covers the TPU backend's bf16x3 matmul rounding through the
-    # ill-conditioned sqrt_d scaling (exact-ish on the CPU backend)
+    # rtol covers accelerator matmul rounding through the ill-conditioned
+    # sqrt_d scaling (exact-ish on the CPU backend)
     np.testing.assert_allclose(np.asarray(rt["weights"]),
                                np.asarray(p["weights"]), rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(np.asarray(rt["bias"]),

@@ -123,8 +123,8 @@ def test_nuts_dense_metric_ill_conditioned_gaussian():
     assert ess_m.min() > 100, ess_m.min()
     eff_m = ess_m.min() / evals_m
     eff_d = ess_d.min() / evals_d
-    # CPU backend measures ~10-15x; TPU matmul rounding costs the diagonal
-    # run a little less, so the robust cross-backend bound is 5x
+    # CPU backend measures ~10-15x; accelerator matmul rounding can cost the
+    # diagonal run a little less, so the robust cross-backend bound is 5x
     assert eff_m > 5 * eff_d, (eff_m, eff_d, evals_m, evals_d)
 
 

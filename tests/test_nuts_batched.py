@@ -49,7 +49,7 @@ def test_batched_nuts_info_shapes_and_invariants():
     acc = np.asarray(info.acceptance_prob)
     assert ((acc >= 0.0) & (acc <= 1.0)).all()
     # cached logdensity matches a fresh evaluation at the new position
-    # (rtol covers TPU matmul rounding; exact on the CPU backend)
+    # (rtol covers accelerator matmul rounding; exact on the CPU backend)
     v, _ = vag(new_state.position)
     np.testing.assert_allclose(np.asarray(v),
                                np.asarray(new_state.logdensity), rtol=1e-4)
